@@ -1,18 +1,16 @@
-"""sparsetpu — a TPU-native sparse linear-algebra framework.
+"""sparsetpu — a sparse linear-algebra library in JAX for NVIDIA GPUs.
 
 Built from scratch against the capability set of euroexa/spmv-fpga (a Xilinx
-ZCU102 HLS SpMV accelerator): 2D-blocked packed CSR with local column
-indices, nnz-balanced row partitioning, unrolled MAC pipelines, empty-row
-compaction, golden-model verification and phase-timed benchmarking — all
-re-derived for TPU hardware (Pallas kernels, XLA, shard_map over device
-meshes) rather than translated from HLS.
+ZCU102 HLS SpMV accelerator): CSR SpMV with nnz-balanced row partitioning,
+golden-model verification and phase-timed benchmarking, extended with SpMM,
+SpGEMM, BSR, iterative solvers and row-sharded multi-GPU products.
 
 Layer map (SURVEY.md section 7):
   formats/   CSR/COO/BSR containers, ingest, CPU golds        (ref L1)
-  pack/      scan + balance + packed formats                  (ref L3)
-  kernels/   Pallas SpMV/SpMM/BSR kernels + XLA fallbacks     (ref L2)
-  api/       pack()/spmv()/SparseMatrix                       (ref L4)
-  dist/      mesh-sharded multi-chip SpMV (new; ref is 1 board)
+  pack/      row balancing, the reference's FPGA stream format (ref L3)
+  kernels/   SpMV routes (XLA, cuSPARSE, Triton), SpGEMM, BSR (ref L2)
+  api/       pack()/spmv()/SparseMatrix, route choice         (ref L4)
+  dist/      mesh-sharded multi-GPU SpMV (new; ref is 1 board)
   solvers/   CG etc. built on spmv (new)
   bench/     the main.cpp measurement protocol                (ref L5)
 """
@@ -24,12 +22,11 @@ from .api import SparseMatrix, pack as pack_matrix, spmv, unpack
 from .formats import (CSRMatrix, COOMatrix, BSRMatrix, read_matrix,
                       spmv_gold, verification)
 from .kernels import SpGEMMPlan, spgemm
-from .kernels.f64emu import DF64
 from .utils import SpmvConfig
 
 __all__ = [
     "SparseMatrix", "pack_matrix", "spmv", "unpack", "CSRMatrix",
     "COOMatrix", "BSRMatrix", "read_matrix", "spmv_gold", "verification",
-    "SpGEMMPlan", "spgemm", "DF64",
-    "SpmvConfig", "formats", "pack", "kernels", "api", "utils",
+    "SpGEMMPlan", "spgemm", "SpmvConfig", "formats", "pack", "kernels",
+    "api", "utils",
 ]

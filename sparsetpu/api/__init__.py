@@ -1,10 +1,9 @@
-from .api import (SparseMatrix, create_csr_hw_matrix, create_csr_hw_x_vector,
-                  delete_csr_hw_matrix, delete_csr_hw_x_vector, pack, spmv,
-                  spmv_hw, unpack)
-from .autotune import autotune_pack
+from .api import (ROUTES, SparseMatrix, choose_route, create_csr_hw_matrix,
+                  create_csr_hw_x_vector, delete_csr_hw_matrix,
+                  delete_csr_hw_x_vector, pack, spmv, spmv_hw, unpack)
 
 __all__ = [
-    "SparseMatrix", "autotune_pack", "create_csr_hw_matrix",
+    "ROUTES", "SparseMatrix", "choose_route", "create_csr_hw_matrix",
     "create_csr_hw_x_vector", "delete_csr_hw_matrix",
     "delete_csr_hw_x_vector", "pack", "spmv", "spmv_hw", "unpack",
 ]

@@ -1,8 +1,10 @@
-"""Benchmark protocol (the reference main.cpp run report, extended) and
-measured-hardware micro benchmarks."""
+"""Benchmark protocol (the reference main.cpp run report, extended).
 
-from .harness import BenchResult, bench_spmv, detect_hbm_gbps
-from .scaling import scaling_report
+``python -m sparsetpu.bench.suite`` and ``python -m sparsetpu.bench.scaling``
+are the commands; both measure a GPU and fail without one."""
 
-__all__ = ["BenchResult", "bench_spmv", "detect_hbm_gbps",
-           "scaling_report"]
+from .harness import (PEAK_HBM_BYTES_S, BenchResult, bench_spmv,
+                      median_call_s, peak_hbm_bytes_s)
+
+__all__ = ["PEAK_HBM_BYTES_S", "BenchResult", "bench_spmv",
+           "median_call_s", "peak_hbm_bytes_s"]

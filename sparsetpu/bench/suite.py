@@ -3,17 +3,17 @@
 One command reproduces the reference's benchmark protocol
 (/root/reference/README.md:23-29: one run per external matrix file) over
 the classic SpMV set: per matrix PASS/FAIL, Gnnz/s, GFLOP/s, fraction of
-the HBM roofline, fill factor and pack time.
+the card's peak bandwidth, bytes per nonzero and pack time.
 
     python -m sparsetpu.bench.suite                 # whole classic set
     python -m sparsetpu.bench.suite scircuit pwtk   # a subset
     python -m sparsetpu.bench.suite --json          # machine-readable
 
-Real matrices are fetched and cached (formats/suitesparse.py); on
-air-gapped machines either pre-place the .mtx files in the cache dir or
-pass --synthetic to run the protocol on published-statistics stand-ins
-(rows marked ``synthetic`` in the table — they measure the engine, not
-the original operator).
+Real matrices are fetched and cached (formats/suitesparse.py).  With
+--synthetic nothing is downloaded: a pre-placed .mtx in the cache dir is
+used, else a published-statistics stand-in (rows marked ``synthetic`` in
+the table — they measure the engine, not the original operator).  The
+command measures a GPU and fails without one.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from typing import List, Optional
 
 
 def _structured_suite():
-    """Deterministic REAL-pattern generators (VERDICT r3 missing #3):
+    """Deterministic REAL-pattern generators:
     genuine non-i.i.d. structure for air-gapped protocol runs — these
     measure the engine against the pattern CLASS of the named originals
     (clustered FEM bands, wrapped shell bands, netlist scatter), not
@@ -38,10 +38,21 @@ def _structured_suite():
     }
 
 
+def _load(name: str, synthetic: bool):
+    """(matrix, status) of a classic-suite entry; never touches the
+    network when ``synthetic``."""
+    from ..formats import suitesparse as ss
+    if not synthetic:
+        return ss.fetch(name)[0], "real"
+    path = ss._find_cached_mtx(name)
+    if path is not None:
+        return ss.read_matrix(path), "real"
+    return ss.synthetic_stand_in(name), "synthetic"
+
+
 def run_suite(names: Optional[List[str]] = None,
-              allow_synthetic: bool = False, verbose: bool = True,
-              autotune: bool = False):
-    from ..formats.suitesparse import CLASSIC_SUITE, fetch
+              allow_synthetic: bool = False, verbose: bool = True):
+    from ..formats.suitesparse import CLASSIC_SUITE
     from .harness import bench_spmv
 
     structured = _structured_suite()
@@ -49,10 +60,10 @@ def run_suite(names: Optional[List[str]] = None,
     rows = []
     for name in names:
         if name in structured:
-            m, is_real = structured[name](), "structured"
+            m, status = structured[name](), "structured"
         else:
             try:
-                m, is_real = fetch(name, allow_synthetic=allow_synthetic)
+                m, status = _load(name, allow_synthetic)
             except (ConnectionError, KeyError) as e:
                 if verbose:
                     print(f"{name:18s} SKIP ({e})", flush=True)
@@ -63,31 +74,26 @@ def run_suite(names: Optional[List[str]] = None,
         m.values = m.values.astype(np.float32)
         from ..utils.config import SpmvConfig
         r = bench_spmv(m, name=name,
-                       config=SpmvConfig(dtype=np.float32),
-                       autotune=autotune)
-        status = (is_real if isinstance(is_real, str)
-                  else ("real" if is_real else "synthetic"))
+                       config=SpmvConfig(dtype=np.float32))
         rows.append({
             "matrix": name, "status": status,
             "rows": r.nr_rows, "cols": r.nr_cols, "nnz": r.nr_nzeros,
-            "pack_ms": round(r.pack_ms, 1),
-            "compile_ms": round(r.compile_ms, 1),
-            "gnnz_s": round(r.gnnz_s, 3),
-            "gflop_s": round(r.gflop_s, 3),
-            "roofline_frac": round(r.roofline_frac, 3),
-            "fill": round(r.fill_factor, 3),
-            "layout": {"G": r.layout_g, "Q": r.layout_q},
+            "platform": r.platform, "device_kind": r.device_kind,
+            "route": r.route, "pack_ms": r.pack_ms,
+            "compile_ms": r.compile_ms, "spmv_ms": r.total_ms,
+            "gnnz_s": r.gnnz_s, "gflop_s": r.gflop_s,
+            "bytes_per_nnz": r.bytes_per_nnz,
+            "roofline_frac": r.roofline_frac,
             "verify": "PASS" if r.verify_errors == 0 else "FAIL",
         })
         if verbose:
-            tag = ("  [structured generator]" if is_real == "structured"
-                   else ("" if is_real else "  [synthetic stand-in]"))
+            roof = ("" if r.roofline_frac is None
+                    else f"  {100 * r.roofline_frac:5.1f}% of peak")
             print(f"{name:18s} {r.nr_rows:9d}x{r.nr_cols:<9d} "
-                  f"{r.nr_nzeros:10d}nnz  {r.gnnz_s:7.2f} Gnnz/s  "
-                  f"{100 * r.roofline_frac:5.1f}% roof  "
-                  f"fill={r.fill_factor:.3f}  "
-                  f"{'PASS' if r.verify_errors == 0 else 'FAIL'}{tag}",
-                  flush=True)
+                  f"{r.nr_nzeros:10d}nnz  {r.gnnz_s:7.2f} Gnnz/s{roof}  "
+                  f"{r.route}  "
+                  f"{'PASS' if r.verify_errors == 0 else 'FAIL'}  "
+                  f"[{status}]", flush=True)
     return rows
 
 
@@ -95,15 +101,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="sparsetpu.bench.suite")
     ap.add_argument("names", nargs="*", help="matrix names (default all)")
     ap.add_argument("--synthetic", action="store_true",
-                    help="substitute published-statistics stand-ins when "
-                         "the download fails (offline machines)")
-    ap.add_argument("--autotune", action="store_true",
-                    help="measure candidate (G, Q) layouts per matrix "
-                         "and benchmark the fastest")
+                    help="download nothing: use pre-placed files, else "
+                         "published-statistics stand-ins")
     ap.add_argument("--json", action="store_true")
     args = ap.parse_args(argv)
+    from ..utils.runtime import init_runtime, require_gpu
+    init_runtime()
+    require_gpu()
     rows = run_suite(args.names or None, allow_synthetic=args.synthetic,
-                     verbose=not args.json, autotune=args.autotune)
+                     verbose=not args.json)
     if args.json:
         print(json.dumps(rows))
     failed = any(r.get("verify") == "FAIL" for r in rows)

@@ -4,8 +4,8 @@ Reproduces the reference executable's run protocol (main.cpp:16-100):
 banner with configuration -> read matrix -> random x -> timed CPU gold ->
 timed repack -> device SpMV -> verification PASS/FAIL -> storage-overhead
 report.  Usage matches ``./run.elf <matrix-file>`` (README.md:23-29), plus
-flags replacing the reference's compile-time Makefile knobs (CU/VF/DOUBLE,
-Makefile:13-18).
+flags replacing the reference's compile-time Makefile knobs (CU/DOUBLE,
+Makefile:13-18).  It measures a GPU and fails without one.
 """
 
 from __future__ import annotations
@@ -16,28 +16,25 @@ import sys
 import numpy as np
 
 
+from .api.api import ROUTES
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="sparsetpu",
-        description="TPU-native SpMV benchmark driver (main.cpp protocol)")
+        description="GPU SpMV benchmark (main.cpp protocol)")
     p.add_argument("matrix", nargs="?",
                    help="matrix file (row-sorted triplet or .mtx); "
                         "omit with --random")
     p.add_argument("--random", type=str, default=None, metavar="RxCxD",
                    help="use a random matrix, e.g. 100000x100000x0.0005")
     p.add_argument("--double", action="store_true",
-                   help="double precision gold/tolerance (DOUBLE=1, "
-                        "Makefile:18); device path is f32/f64-emulated")
-    p.add_argument("--vf", type=int, default=0, choices=(0, 1, 2, 4, 8),
-                   help="vector factor / row-pad quantum (VF, "
-                        "Makefile:17); 0 = chosen by the layout model")
+                   help="native float64 (DOUBLE=1, Makefile:18)")
     p.add_argument("--partitions", type=int, default=1,
                    help="row partitions (CU, Makefile:14; any >=1)")
-    p.add_argument("--backend", default="pallas",
-                   choices=("pallas", "fused", "xla"),
-                   help="pallas auto-selects the fused resident-x "
-                        "layout; 'fused' forces it (errors when "
-                        "inapplicable)")
+    p.add_argument("--backend", default="auto",
+                   choices=("auto",) + ROUTES,
+                   help="SpMV route; auto picks the measured winner")
     p.add_argument("--repeats", type=int, default=20)
     p.add_argument("--verbose", "-v", action="count", default=0)
     p.add_argument("--profile", type=str, default=None, metavar="DIR",
@@ -49,6 +46,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
+    from .utils.runtime import init_runtime, require_gpu
+    init_runtime()
+    require_gpu()
     from .formats.io import read_matrix
     from .formats.random import random_csr
     from .bench.harness import bench_spmv
@@ -57,8 +57,7 @@ def main(argv=None) -> int:
     dtype = np.float64 if args.double else np.float32
     # banner (main.cpp:18-25)
     print(f"sparsetpu SpMV: partitions={args.partitions} "
-          f"vf={args.vf or 'auto'} "
-          f"precision={'double(emulated)' if args.double else 'single'} "
+          f"precision={'double' if args.double else 'single'} "
           f"backend={args.backend}")
 
     if args.random:
@@ -73,8 +72,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
 
-    cfg = SpmvConfig(dtype=dtype, vf=args.vf,
-                     num_partitions=args.partitions)
+    cfg = SpmvConfig(dtype=dtype, num_partitions=args.partitions)
     if args.profile:
         import jax
         with jax.profiler.trace(args.profile):

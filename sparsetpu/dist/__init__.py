@@ -1,12 +1,5 @@
-"""Distributed (mesh-sharded) SpMV: all-gather, ring-overlap and df64
-schedules."""
+"""Row-sharded SpMV over a device mesh (all-gather of x, local CSR route)."""
 
-from .df64 import ShardedSpmvDF64, shard_spmv_df64
-from .ring import RingShardedSpmv, ring_shard_spmv
-from .spmv_dist import (ShardedSpmv, choose_schedule, make_mesh,
-                        shard_spmv, shard_spmv_auto)
+from .spmv_dist import ShardedSpmv, make_mesh, shard_spmv
 
-__all__ = ["ShardedSpmv", "RingShardedSpmv", "ShardedSpmvDF64",
-           "choose_schedule", "make_mesh", "shard_spmv",
-           "shard_spmv_auto", "ring_shard_spmv",
-           "shard_spmv_df64"]
+__all__ = ["ShardedSpmv", "make_mesh", "shard_spmv"]

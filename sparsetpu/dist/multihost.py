@@ -1,37 +1,28 @@
-"""Multi-host (DCN) distributed SpMV scaffolding.
+"""Multi-process distributed SpMV.
 
-SURVEY.md section 2.9 scopes the communication layer as "ICI within a
-slice and DCN across hosts".  Single-process SPMD (dist/spmv_dist.py)
-covers the ICI slice; this module adds the multi-process path:
+Single-process SPMD (dist/spmv_dist.py) covers the devices of one host;
+this module adds the multi-process path:
 
-  * ``init_multihost`` — the ``jax.distributed.initialize`` entry
-    (coordinator/process env variables or explicit arguments).  After it
-    returns, ``jax.devices()`` spans every host and a Mesh over it makes
-    the x all-gather ride ICI within each slice and DCN across hosts
-    (XLA partitions the collective by network domain automatically).
-  * ``shard_spmv_multihost`` — the per-host pack + distribution path:
-    every process packs ONLY the row partitions owned by its local
-    (addressable) devices and contributes them to the globally sharded
-    arrays via ``jax.make_array_from_single_device_arrays``; layout
-    uniformity (G / Q / tiles_per_step / step counts) is agreed through
-    deterministic global model choices plus a tiny
-    ``multihost_utils.process_allgather`` of the per-shard step counts.
+  * ``init_multihost`` — the ``jax.distributed.initialize`` entry.  After
+    it returns, ``jax.devices()`` spans every process and a mesh over it
+    makes the x all-gather cross hosts.
+  * ``shard_spmv_multihost`` — per-host CSR partitions: every process
+    builds ONLY the row partitions owned by its local (addressable)
+    devices and contributes them to the globally sharded arrays via
+    ``jax.make_array_from_single_device_arrays``.  The uniform shard shapes
+    are derived from the full matrix, which every host holds, so the hosts
+    agree on them without communicating.
 
 On a single process (including the simulated CPU mesh of
-tests/conftest.py) the same code path runs with all devices local, so
-the multi-host program is CPU-testable without a pod — the reference's
-emulator-style fake backend (SURVEY.md section 4).
+tests/conftest.py) the same code path runs with all devices local, so the
+multi-process program is CPU-testable without a cluster.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
-
 from ..formats.csr import CSRMatrix
-from ..pack.balance import balance_rows
-from ..pack.gather_stream import pack_gstream, _choose_layout
 from ..utils.config import SpmvConfig
 
 
@@ -39,201 +30,44 @@ def init_multihost(coordinator_address: Optional[str] = None,
                    num_processes: Optional[int] = None,
                    process_id: Optional[int] = None,
                    **kwargs) -> None:
-    """Initialize the JAX distributed runtime (DCN bootstrap).
-
-    With no arguments, JAX reads the cluster environment (TPU pod
-    metadata, or JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
-    JAX_PROCESS_ID).  Safe to call once per process, before any jax
-    computation."""
+    """Initialize the JAX distributed runtime.  Without a cluster
+    environment JAX cannot infer the arguments: pass the coordinator's
+    ``host:port``, the process count and this process's id.  Call once per
+    process, before any jax computation."""
     import jax
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes, process_id=process_id, **kwargs)
 
 
-def is_multiprocess() -> bool:
-    import jax
-    return jax.process_count() > 1
-
-
 def shard_spmv_multihost(matrix: CSRMatrix, mesh=None, axis: str = "rows",
                          config: Optional[SpmvConfig] = None,
-                         interpret=False):
-    """Pack + shard a CSR matrix over a (possibly multi-host) mesh with
-    per-host packing: each process packs only the row partitions its
-    addressable devices own.
+                         backend: str = "auto"):
+    """Partition + shard a CSR matrix over a (possibly multi-process) mesh,
+    building on each process only the partitions its devices own.
 
-    ``matrix`` is the full CSR on every host (the usual multi-host input
-    pattern: every host reads the file; only 1/num_hosts of it is packed
-    and uploaded locally).  Returns a ShardedSpmv whose arrays are
-    globally sharded jax.Arrays — ``spmv`` runs the same SPMD program as
-    the single-process path."""
+    ``matrix`` is the full CSR on every host (every host reads the file;
+    only its share is laid out and uploaded).  Returns a ShardedSpmv whose
+    arrays are globally sharded jax.Arrays — ``spmv`` runs the same SPMD
+    program as the single-process path."""
     import jax
-    import jax.numpy as jnp
-    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-    from .spmv_dist import ShardedSpmv, _slice_rows, make_mesh
-    from ..kernels.spmv_pallas import combine_meta
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from .spmv_dist import ShardLayout, assemble, make_mesh
 
     if mesh is None:
         mesh = make_mesh()
     devs = list(mesh.devices.reshape(-1))
-    P_ = len(devs)
-    part = balance_rows(matrix, P_)
-    rows_per_part = int(max(part.row_end - part.row_start))
-
-    # deterministic global layout: every host runs the same model on the
-    # same full matrix (no communication needed for these)
-    G, Q = _choose_layout(matrix)
-    if config is not None and config.vf:
-        Q = config.vf
-    est_tiles = max(1, int(matrix.nr_nzeros // P_ * 1.3) // 1024)
-    tps = 128 if est_tiles >= 1024 else (32 if est_tiles >= 128 else 8)
-
-    local_ids = [p for p, d in enumerate(devs)
-                 if d.process_index == jax.process_index()]
-    packs = {}
-    for p in local_ids:
-        r0, r1 = int(part.row_start[p]), int(part.row_end[p])
-        packs[p] = pack_gstream(_slice_rows(matrix, r0, r1), config,
-                                G=G, Q=Q, tiles_per_step=tps,
-                                shuffle_lanes=True)
-    planes = 8 // Q
-
-    # agree on the global step count (pad target) across processes
-    local_max_steps = max((pk.n_steps for pk in packs.values()),
-                          default=1)
-    if is_multiprocess():
-        from jax.experimental import multihost_utils
-        n_steps = int(np.max(multihost_utils.process_allgather(
-            jnp.asarray([local_max_steps]))))
-    else:
-        n_steps = local_max_steps
-
-    def pad_steps(a, per_step_rows, fill=0):
-        cur = a.shape[0] // per_step_rows if per_step_rows else 0
-        if cur == n_steps:
-            return a
-        pad = ((n_steps - cur) * per_step_rows,) + a.shape[1:]
-        return np.concatenate([a, np.full(pad, fill, a.dtype)], axis=0)
-
-    # per-shard finals: a FIXED pinned configuration keeps the builder
-    # deterministic across hosts; if any local shard cannot build, all
-    # processes must agree to fall back (allgather the flag)
-    force = (4, 4, 32)          # (nw, G_u, tps) — uniform by construction
-    from ..kernels.spmv_pallas import _FinalLevel
-    rowmaps, fins = {}, {}
-    fins_ok = True
-    for p, pk in packs.items():
-        cr = pk.chunk_row.copy()
-        cr[cr == pk.nr_rows] = rows_per_part
-        rowmaps[p] = pad_steps(cr, tps * planes, fill=rows_per_part)
-        fin = _FinalLevel.build(rowmaps[p].reshape(-1).astype(np.int64),
-                                rows_per_part, False, force=force)
-        if fin is None:
-            fins_ok = False
-        fins[p] = fin
-    if is_multiprocess():
-        from jax.experimental import multihost_utils
-        fins_ok = bool(np.all(multihost_utils.process_allgather(
-            jnp.asarray([1 if fins_ok else 0]))))
-
-    # assemble globally sharded arrays from per-host shard buffers
+    layout = ShardLayout.build(matrix, len(devs), config, backend)
+    local = {p: layout.shard(matrix, p) for p, d in enumerate(devs)
+             if d.process_index == jax.process_index()}
     sharding = NamedSharding(mesh, P(axis))
 
-    def assemble(name, local_of, shape_tail, dtype):
-        gshape = (P_,) + shape_tail
-        bufs = []
-        for p in local_ids:
-            arr = np.asarray(local_of(p), dtype=dtype).reshape(
-                (1,) + shape_tail)
-            bufs.append(jax.device_put(arr, devs[p]))
+    def global_array(i):
+        first = next(iter(local.values()))[i]
+        bufs = [jax.device_put(arrs[i][None], devs[p])
+                for p, arrs in local.items()]
         return jax.make_array_from_single_device_arrays(
-            gshape, sharding, bufs)
+            (len(devs),) + first.shape, sharding, bufs)
 
-    rows_per_step = tps * 8
-    vals = assemble(
-        "values", lambda p: pad_steps(packs[p].values, rows_per_step),
-        (n_steps * rows_per_step, 128), np.float32)
-    metas = assemble(
-        "meta16",
-        lambda p: pad_steps(combine_meta(packs[p].cell_idx,
-                                         packs[p].route), rows_per_step),
-        (n_steps * rows_per_step, 128), np.int16)
-    crs = assemble("chunk_row", lambda p: rowmaps[p].reshape(-1),
-                   (n_steps * tps * planes * 128,), np.int32)
-    winds = assemble("step_window",
-                     lambda p: pad_steps(packs[p].step_window, 1),
-                     (n_steps,), np.int32)
-
-    fin_dev = (None,) * 5
-    fin_static = None
-    if fins_ok and fins:
-        arrays, fin_static = _pad_finals(fins, local_ids, rows_per_part,
-                                         force)
-        fin_dev = tuple(
-            assemble(f"fin{i}", lambda p, i=i: arrays[p][i],
-                     arrays[local_ids[0]][i].shape,
-                     arrays[local_ids[0]][i].dtype)
-            if arrays[local_ids[0]][i] is not None else None
-            for i in range(5))
-
-    return ShardedSpmv(
-        mesh=mesh, axis=axis, nr_rows=matrix.nr_rows,
-        nr_cols=matrix.nr_cols, nr_nzeros=matrix.nr_nzeros,
-        row_starts=part.row_start, rows_per_part=rows_per_part,
-        values=vals, meta16=metas, chunk_row=crs, step_window=winds,
-        G=G, tiles_per_step=tps, n_steps=n_steps,
-        padded_cols=packs[local_ids[0]].padded_cols if local_ids
-        else -(-matrix.nr_cols // (G * 1024)) * G * 1024,
-        planes=planes, interpret=interpret,
-        fin_meta=fin_dev[0], fin_cell=fin_dev[1], fin_route=fin_dev[2],
-        fin_spill_pos=fin_dev[3], fin_spill_row=fin_dev[4],
-        fin_static=fin_static)
-
-
-def _pad_finals(fins, local_ids, rows_per_part, force):
-    """Pad each local shard's final to globally uniform shapes.  The
-    uniform step/spill counts must be process-independent: they are
-    allgathered when multi-process."""
-    import jax
-    import jax.numpy as jnp
-    nw, G_u, tps = force
-    local_S = max(f.n_steps for f in fins.values())
-    local_K = max(f.n_spills for f in fins.values())
-    local_X = max(f.x_pad_rows for f in fins.values())
-    nt_pad = fins[local_ids[0]].nt_pad
-    if is_multiprocess():
-        from jax.experimental import multihost_utils
-        g = multihost_utils.process_allgather(
-            jnp.asarray([local_S, local_K, local_X]))
-        local_S, local_K, local_X = (int(v) for v in np.max(g, axis=0))
-    S_max, K_max, x_pad = local_S, local_K, local_X
-    drain = np.int16(nw * 8 * G_u)
-    out = {}
-    for p, f in fins.items():
-        meta = np.asarray(f.step_meta)
-        cell = np.asarray(f.cell_idx)
-        rout = np.asarray(f.route)
-        pad_s = S_max - f.n_steps
-        if pad_s:
-            pm = np.zeros((pad_s, nw + 2), np.int32)
-            pm[:, nw] = 1
-            pm[:, nw + 1] = nt_pad // tps
-            meta = np.concatenate([meta, pm], axis=0)
-            cell = np.concatenate(
-                [cell, np.full((pad_s * tps * 8, cell.shape[1]), drain,
-                               np.int16)], axis=0)
-            rout = np.concatenate(
-                [rout, np.zeros((pad_s * tps * 8, rout.shape[1]),
-                                rout.dtype)], axis=0)
-        pos = (np.asarray(f.spill_pos) if f.spill_pos is not None
-               else np.zeros(0, np.int32))
-        row = (np.asarray(f.spill_row) if f.spill_row is not None
-               else np.zeros(0, np.int32))
-        pos = np.pad(pos, (0, K_max - pos.shape[0])).astype(np.int32)
-        row = np.pad(row, (0, K_max - row.shape[0]),
-                     constant_values=rows_per_part).astype(np.int32)
-        out[p] = (meta, cell, rout,
-                  pos if K_max else None, row if K_max else None)
-    static = (tps, G_u, nw, S_max, nt_pad + tps, x_pad)
-    return out, static
+    arrays = [global_array(i) for i in range(layout.n_arrays)]
+    return assemble(matrix, layout, mesh, axis, arrays)

@@ -80,7 +80,7 @@ def fem_poisson_3d(n: int, dtype=np.float64) -> CSRMatrix:
     n^3 grid — a REAL structured PDE matrix (the suite's cant/consph
     class: clustered banded blocks), generated deterministically so a
     genuine non-i.i.d. pattern can be benchmarked on an air-gapped
-    machine (r2 VERDICT missing #2).  SPD, rows have up to 27 nnz in
+    machine.  SPD, rows have up to 27 nnz in
     3 clustered bands of 3 runs each."""
     idx = np.arange(n, dtype=np.int64)
     I, J, K = np.meshgrid(idx, idx, idx, indexing="ij")
@@ -113,7 +113,7 @@ def shell_3d(ns: int = 64, nc: int = 96, nl: int = 3, dof: int = 3,
     dof x dof blocks).  The circumferential wrap produces the two far
     off-diagonal bands that separate ship-section matrices from plain
     banded ones; generated deterministically for air-gapped protocol
-    runs (VERDICT r3 missing #3)."""
+    runs."""
     # circumference as the OUTER axis: the j wrap then couples node
     # blocks at opposite ends of the numbering — the far off-diagonal
     # band pair that distinguishes ship sections from banded matrices

@@ -1,6 +1,4 @@
-from .spmv_xla import spmv_coo_xla, spmm_coo_xla, spmv_chunked_xla
-from .spmv_pallas import GStreamDevice, spmv_gstream
+from .spmv_xla import spmv_coo_xla, spmm_coo_xla
 from .spgemm import SpGEMMPlan, spgemm
 
-__all__ = ["spmv_coo_xla", "spmm_coo_xla", "spmv_chunked_xla",
-           "GStreamDevice", "spmv_gstream", "SpGEMMPlan", "spgemm"]
+__all__ = ["spmv_coo_xla", "spmm_coo_xla", "SpGEMMPlan", "spgemm"]

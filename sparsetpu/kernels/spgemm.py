@@ -5,7 +5,7 @@ format conversion"); the reference has no SpGEMM analogue, so per
 SURVEY.md section 7 the target is "correct, format-complete", with reuse
 of the packed-SpMV machinery rather than a bespoke kernel.
 
-Design (row-merge formulation, TPU-shaped):
+Design (row-merge formulation):
   * symbolic phase (host, once): compute C's sparsity pattern and expand
     the multiplication events — every (i,k,j) with A[i,k] != 0 and
     B[k,j] != 0 contributes A[i,k]*B[k,j] to C[i,j].
@@ -13,16 +13,14 @@ Design (row-merge formulation, TPU-shaped):
       b = B.values                      (vector of length nnz(B))
       M[o, e] = A[i,k]                  (o = output-nnz index of (i,j),
                                          e = B-nnz index of (k,j))
-    M is packed once into GStream and the multiply runs on the TPU with
-    the same kernel + finish as every other SpMV.  Re-multiplying with
+    M is packed once as a ``SparseMatrix`` and the multiply runs on the
+    device on the same SpMV route as every other product.  Re-multiplying with
     new numeric values (same structure) costs one device SpMV — the
     "repack once, execute many" contract of the reference's
     create_csr_hw_matrix / spmv_hw split (csr_hw_wrapper.cpp:193-288).
 """
 
 from __future__ import annotations
-
-from typing import Optional
 
 import jax.numpy as jnp
 import numpy as np
@@ -75,11 +73,11 @@ class SpGEMMPlan:
     a new plan if A's values change — they are the event-matrix entries).
     """
 
-    def __init__(self, a: CSRMatrix, b: CSRMatrix,
-                 interpret: Optional[bool] = None):
+    def __init__(self, a: CSRMatrix, b: CSRMatrix):
         from ..api.api import SparseMatrix
 
         self.nr_rows, self.nr_cols = a.nr_rows, b.nr_cols
+        self.dtype = np.result_type(a.dtype, b.dtype)
         ea, eb, out_idx, (c_row_ptr, c_cols) = _expand_events(a, b)
         self.c_row_ptr = c_row_ptr
         self.c_col_ind = c_cols.astype(np.int32)
@@ -89,30 +87,29 @@ class SpGEMMPlan:
             self._event_matrix = None
             return
         m = CSRMatrix.from_coo(out_idx, eb,
-                               a.values[ea].astype(np.float32),
+                               a.values[ea].astype(self.dtype),
                                self.nnz_c, b.nr_nzeros,
                                sum_duplicates=True)
-        self._event_matrix = SparseMatrix(m, backend="pallas",
-                                          interpret=interpret)
+        self._event_matrix = SparseMatrix(m)
 
     def __call__(self, b_values) -> jnp.ndarray:
         """C.values for the given B values (device numeric phase)."""
         if self._event_matrix is None:
-            return jnp.zeros((self.nnz_c,), jnp.float32)
+            return jnp.zeros((self.nnz_c,), self.dtype)
         return self._event_matrix.spmv(np.asarray(b_values,
-                                                  dtype=np.float32))
+                                                  dtype=self.dtype))
 
     def to_csr(self, c_values) -> CSRMatrix:
         return CSRMatrix(self.c_row_ptr.astype(np.int64),
                          self.c_col_ind.astype(np.int32),
-                         np.asarray(c_values, dtype=np.float32),
+                         np.asarray(c_values, dtype=self.dtype),
                          self.nr_rows, self.nr_cols)
 
 
-def spgemm(a: CSRMatrix, b: CSRMatrix,
-           interpret: Optional[bool] = None) -> CSRMatrix:
-    """C = A @ B with the numeric phase on device; returns CSR."""
+def spgemm(a: CSRMatrix, b: CSRMatrix) -> CSRMatrix:
+    """C = A @ B with the numeric phase on device; returns CSR in the
+    promoted dtype of A and B."""
     if a.nr_cols != b.nr_rows:
         raise ValueError(f"dimension mismatch: {a.shape} @ {b.shape}")
-    plan = SpGEMMPlan(a, b, interpret=interpret)
+    plan = SpGEMMPlan(a, b)
     return plan.to_csr(np.asarray(plan(b.values)))

@@ -1,10 +1,9 @@
-"""Native (C++) host-side runtime: fast matrix loader, pack engine, gold.
+"""Native (C++) host-side runtime: the fast matrix-file loader.
 
-The reference's host side is C++ on the Zynq ARM (csr.cpp, csr_hw.cpp);
-here the equivalent hot host paths (file parsing, repack inner loops,
-verification) are C++ behind ctypes, built by sparsetpu/native/Makefile.
-Everything degrades gracefully to the NumPy implementations when the
-shared library has not been built.
+The reference's host side is C++ on the Zynq ARM (csr.cpp); here the one
+hot host path left native is file parsing, C++ behind ctypes, built by
+sparsetpu/native/Makefile.  formats/io.py falls back to the NumPy parser
+when the shared library has not been built.
 """
 
 from . import loader  # noqa: F401

@@ -33,13 +33,13 @@ def _lib():
             except subprocess.CalledProcessError as e:
                 warnings.warn(
                     "sparsetpu native auto-build failed (falling back to "
-                    "the NumPy pack engine):\n"
+                    "the NumPy parser):\n"
                     + e.stderr.decode(errors="replace")[-2000:],
                     RuntimeWarning)
             except Exception as e:
                 warnings.warn(
                     f"sparsetpu native auto-build failed: {e!r} (falling "
-                    "back to the NumPy pack engine)", RuntimeWarning)
+                    "back to the NumPy parser)", RuntimeWarning)
         if not os.path.exists(path):
             raise FileNotFoundError(
                 f"{_LIB_NAME} not built; run `make -C sparsetpu/native` "

@@ -1,10 +1,7 @@
 from .scan import BlockScan, scan_matrix
 from .balance import RowPartition, balance_report, balance_rows
-from .gather_stream import (GStreamMatrix, pack_gstream, unpack_gstream,
-                            CHUNK, STRIPE, TILE_CHUNKS, TILE_NNZ)
 
 __all__ = [
     "BlockScan", "scan_matrix", "RowPartition", "balance_report",
-    "balance_rows", "GStreamMatrix", "pack_gstream", "unpack_gstream",
-    "CHUNK", "STRIPE", "TILE_CHUNKS", "TILE_NNZ",
+    "balance_rows",
 ]

@@ -38,6 +38,10 @@ BUS_BITS = 128                  # util.h:61
 RATIO_CI = 8                    # 16-bit packed indices per word, util.h:64
 COL_BITS = 15                   # in-block column index width
 EOR_BIT = 15                    # end-of-row flag bit (csr_hw.cpp:288-292)
+# 2D column-block width: the 15-bit in-block index bound, COLS_DIV_BLOCKS
+# for CU<=8 (util.h:43-58, csr_hw.cpp:288-292, README.md:63)
+MAX_BLOCK_COLS = 1 << COL_BITS
+VALID_VF = (1, 2, 4, 8)         # util.h:31-39
 
 
 def _ratio_v(dtype) -> int:
@@ -151,13 +155,20 @@ def _pack_one(rows, cols, vals, thres_l, vf, dtype):
                            nr_nzeros=total_g, nr_ci=n_ci, nr_val=n_val)
 
 
-def pack_blocked(matrix: CSRMatrix, config: Optional[SpmvConfig] = None
+def pack_blocked(matrix: CSRMatrix, config: Optional[SpmvConfig] = None,
+                 vf: int = 1, block_cols: int = MAX_BLOCK_COLS
                  ) -> BlockedHwMatrix:
     """create_csr_hw_matrix (csr_hw_wrapper.cpp:3-80 + csr_hw.cpp:377-1398)
-    for any num_partitions."""
+    for any num_partitions; ``vf`` is the reference's VF row-pad factor and
+    ``block_cols`` its COLS_DIV_BLOCKS column-block width."""
     cfg = config or SpmvConfig(dtype=matrix.dtype)
-    bc = cfg.block_cols
-    n_blocks = cfg.nr_blocks(matrix.nr_cols)
+    if vf not in VALID_VF:
+        raise ValueError(f"vf must be one of {VALID_VF}, got {vf}")
+    if not 0 < block_cols <= MAX_BLOCK_COLS:
+        raise ValueError(f"block_cols must be in 1..{MAX_BLOCK_COLS} "
+                         "(15-bit local index, csr_hw.cpp:288-292)")
+    bc = block_cols
+    n_blocks = -(-matrix.nr_cols // bc)
     part = balance_rows(matrix, cfg.num_partitions)
 
     rows_all = np.repeat(np.arange(matrix.nr_rows, dtype=np.int64),
@@ -180,13 +191,13 @@ def pack_blocked(matrix: CSRMatrix, config: Optional[SpmvConfig] = None
                     np.zeros((0, RATIO_CI), np.uint16), 0, 0, 0, 0))
             else:
                 prow.append(_pack_one(r, c, v.astype(cfg.dtype), b * bc,
-                                      cfg.vf or 1, cfg.dtype))
+                                      vf, cfg.dtype))
         subs.append(prow)
     return BlockedHwMatrix(
         submatrices=subs, empty_rows_bitmap=bitmap,
         part_row_start=part.row_start, part_row_end=part.row_end,
         nr_rows=matrix.nr_rows, nr_cols=matrix.nr_cols,
-        nr_nzeros=matrix.nr_nzeros, block_cols=bc, vf=cfg.vf or 1,
+        nr_nzeros=matrix.nr_nzeros, block_cols=bc, vf=vf,
         dtype=np.dtype(cfg.dtype))
 
 

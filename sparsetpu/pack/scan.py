@@ -9,8 +9,8 @@ in one pass over the CSR structure:
   * total expanded (padded) nnz (csr_hw.cpp:124-130).
 
 The reference walks row_ptr/col_ind with scalar loops on the ARM core; here
-it is a handful of NumPy histogram ops (and the native C++ engine offers the
-same via sparsetpu.native for very large matrices).
+it is a handful of NumPy histogram ops.  The blocks are those of the
+reference's stream format (pack/blocked.py).
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import dataclasses
 import numpy as np
 
 from ..formats.csr import CSRMatrix
-from ..utils.config import SpmvConfig
+from .blocked import MAX_BLOCK_COLS
 
 
 @dataclasses.dataclass
@@ -38,9 +38,10 @@ class BlockScan:
                                   # (csr_hw.cpp:340-347 / 723-727)
 
 
-def scan_matrix(matrix: CSRMatrix, config: SpmvConfig) -> BlockScan:
-    bc = config.block_cols
-    nr_blocks = config.nr_blocks(matrix.nr_cols)
+def scan_matrix(matrix: CSRMatrix, vf: int = 1,
+                block_cols: int = MAX_BLOCK_COLS) -> BlockScan:
+    bc = block_cols
+    nr_blocks = -(-matrix.nr_cols // bc)
     blocks_idx = np.arange(nr_blocks, dtype=np.int64)
     thres_l = blocks_idx * bc
     thres_h = np.minimum(thres_l + bc, matrix.nr_cols)
@@ -53,7 +54,6 @@ def scan_matrix(matrix: CSRMatrix, config: SpmvConfig) -> BlockScan:
     counts = np.bincount(flat, minlength=nr_blocks * matrix.nr_rows)
     block_row_nnz = counts.reshape(nr_blocks, matrix.nr_rows)
 
-    vf = config.vf or 1   # 0 = auto quantum: report unpadded counts
     padded = ((block_row_nnz + vf - 1) // vf) * vf
     empty = block_row_nnz == 0
 

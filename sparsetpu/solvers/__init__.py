@@ -1,9 +1,7 @@
-from .cg import (CGResult, bicgstab, cg, cg_df64, cg_step, gmres,
-                 jacobi_iteration, jacobi_preconditioner, pcg, pcg_df64,
-                 power_iteration)
+from .cg import (CGResult, bicgstab, cg, cg_step, gmres, jacobi_iteration,
+                 jacobi_preconditioner, pcg, power_iteration)
 
 __all__ = [
-    "CGResult", "bicgstab", "cg", "cg_df64", "cg_step", "gmres",
-    "jacobi_iteration", "jacobi_preconditioner", "pcg", "pcg_df64",
-    "power_iteration",
+    "CGResult", "bicgstab", "cg", "cg_step", "gmres", "jacobi_iteration",
+    "jacobi_preconditioner", "pcg", "power_iteration",
 ]

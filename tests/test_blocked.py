@@ -7,8 +7,6 @@ from sparsetpu.formats import random_csr, spmv_gold, verification
 from sparsetpu.pack.blocked import (pack_blocked, print_wide,
                                     spmv_blocked_emulated, unpack_stream,
                                     write_hw_x_vector, _ratio_col_val)
-from sparsetpu.pack.serialize import load_gstream, save_gstream
-from sparsetpu.pack import pack_gstream, unpack_gstream
 from sparsetpu.utils import SpmvConfig
 
 
@@ -23,8 +21,8 @@ def test_stream_period(dtype, period):
 def test_blocked_pack_emulated_spmv(dtype, partitions, vf):
     m = random_csr(300, 40000, density=0.003, seed=40, dtype=dtype,
                    empty_row_frac=0.2)  # 2 column blocks at 32768
-    cfg = SpmvConfig(dtype=dtype, vf=vf, num_partitions=partitions)
-    hw = pack_blocked(m, cfg)
+    cfg = SpmvConfig(dtype=dtype, num_partitions=partitions)
+    hw = pack_blocked(m, cfg, vf=vf)
     assert hw.nr_blocks == 2
     assert hw.num_partitions == partitions
     x = np.random.default_rng(1).standard_normal(m.nr_cols).astype(dtype)
@@ -41,7 +39,7 @@ def test_blocked_bit_layout():
     cols = np.array([5, 700, 32768 + 9])  # block 0 and block 1
     vals = np.array([1.0, 2.0, 3.0])
     m = CSRMatrix.from_coo(rows, cols, vals, 2, 40000)
-    hw = pack_blocked(m, SpmvConfig(dtype=np.float64, vf=1))
+    hw = pack_blocked(m, SpmvConfig(dtype=np.float64), vf=1)
     sub0 = hw.submatrices[0][0]
     local, eor, v = unpack_stream(sub0, np.dtype(np.float64))
     assert local[0] == 5 and not eor[0]
@@ -66,36 +64,25 @@ def test_write_hw_x_vector_pads():
 
 def test_storage_overhead_reported():
     m = random_csr(200, 1000, density=0.05, seed=41)
-    hw = pack_blocked(m, SpmvConfig(dtype=np.float64, vf=1))
+    hw = pack_blocked(m, SpmvConfig(dtype=np.float64), vf=1)
     assert 0.5 < hw.storage_overhead() < 3.0
 
 
-def test_gstream_serialize_roundtrip(tmp_path):
-    m = random_csr(100, 2000, density=0.02, seed=42)
-    p = pack_gstream(m)
-    f = str(tmp_path / "packed.npz")
-    save_gstream(f, p)
-    p2 = load_gstream(f)
-    m2 = unpack_gstream(p2)
-    assert np.allclose(m.to_dense(), m2.to_dense())
+def test_blocked_rejects_bad_knobs():
+    m = random_csr(20, 100, density=0.1, seed=43)
+    with pytest.raises(ValueError, match="vf"):
+        pack_blocked(m, vf=3)
+    with pytest.raises(ValueError, match="block_cols"):
+        pack_blocked(m, block_cols=1 << 16)
 
 
-def test_gstream_serialize_keeps_finish_quality(tmp_path):
-    """r2 VERDICT weak #6: a reloaded pack must keep `sections`/`ordered`
-    so the rebuilt device picks the same (fast) final level as the
-    original, not a silent legacy-finish downgrade."""
-    from sparsetpu.kernels.spmv_pallas import GStreamDevice
-
-    m = random_csr(400, 3000, density=0.01, seed=7)
-    p = pack_gstream(m)
-    f = str(tmp_path / "packed.npz")
-    save_gstream(f, p)
-    p2 = load_gstream(f)
-    assert p2.ordered == p.ordered
-    assert (p2.sections is None) == (p.sections is None)
-    if p.sections is not None:
-        assert np.array_equal(np.asarray(p2.sections),
-                              np.asarray(p.sections))
-    d1 = GStreamDevice(p, interpret=True)
-    d2 = GStreamDevice(p2, interpret=True)
-    assert type(d2.final).__name__ == type(d1.final).__name__
+@pytest.mark.parametrize("block_cols", [512, 4096])
+def test_blocked_narrow_blocks(block_cols):
+    """COLS_DIV_BLOCKS narrower than the 15-bit bound: more blocks, the
+    same product."""
+    m = random_csr(100, 5000, density=0.01, seed=44)
+    hw = pack_blocked(m, vf=2, block_cols=block_cols)
+    assert hw.nr_blocks == -(-5000 // block_cols)
+    x = np.random.default_rng(2).standard_normal(m.nr_cols)
+    assert verification(spmv_gold(m, x), spmv_blocked_emulated(hw, x),
+                        diff_thres=1e-12, rel_thres=1e-12) == 0

@@ -1,104 +1,100 @@
-"""jit-composable df64 (VERDICT r1 item 3): the DF64 pytree type, traced
-SpMV, df64 CG inside lax.while_loop, the fused df64 SpMM (item 5), and
-the df64 device checkpoint (ADVICE r1)."""
+"""Native float64 under jit: traced SpMV, f64 SpMM, CG/PCG inside
+lax.while_loop, and the f64 checkpoint (the reference's DOUBLE=1 build,
+Makefile:18, computed natively)."""
 
 import numpy as np
 import pytest
 
 import jax
-import jax.numpy as jnp
 
-from sparsetpu import DF64, SparseMatrix
+from sparsetpu import SparseMatrix
+from sparsetpu.formats.gold import default_tolerance, spmv_gold, verification
 from sparsetpu.formats.random import laplace_2d, random_csr
-from sparsetpu.solvers.cg import cg_df64
+from sparsetpu.solvers.cg import cg, jacobi_preconditioner, pcg
 
 
-def test_df64_arithmetic_compensation():
-    a = DF64.from_f64(np.array([1e8 + 1 / 3, -2.5e-7]))
-    b = DF64.from_f64(np.array([1.0, 1e8]))
-    s = (a + b).to_f64()
-    gold = np.array([1e8 + 1 / 3 + 1.0, 1e8 - 2.5e-7])
-    assert np.abs(s - gold).max() < 1e-7
-    d = a.dot(b).to_f64()
-    gd = (1e8 + 1 / 3) * 1.0 + (-2.5e-7) * 1e8
-    assert abs(d - gd) / abs(gd) < 1e-13
-    q = (a / b).to_f64()
-    assert np.abs(q - np.array([1e8 + 1 / 3, -2.5e-15])).max() < 1e-6
-    n = DF64.from_f64(np.array([3.0, 4.0])).norm().to_f64()
-    assert abs(n - 5.0) < 1e-13
-
-
-def test_df64_spmv_traced_matches_eager():
+def test_f64_spmv_traced_matches_eager():
     m = random_csr(400, 700, density=0.01, seed=3)     # float64 values
-    A = SparseMatrix(m)                                # DOUBLE default
+    A = SparseMatrix(m)
     x = np.random.default_rng(0).standard_normal(m.nr_cols)
-    y_eager = A.spmv(x)
-    y_traced = jax.jit(lambda A, xd: A.spmv(xd))(A, DF64.from_f64(x))
-    assert isinstance(y_traced, DF64)
-    assert np.abs(y_traced.to_f64() - y_eager).max() < 1e-12
+    y_eager = np.asarray(A.spmv(x))
+    y_traced = jax.jit(lambda A, xd: A.spmv(xd))(A, x)
+    assert y_traced.dtype == np.float64
+    assert np.array_equal(np.asarray(y_traced), y_eager)
 
 
 def test_matmul_keeps_f64_precision():
-    # ADVICE r1 (medium): A @ x must not truncate float64 x to f32
+    # A @ x must not truncate float64 x to f32
     m = random_csr(300, 500, density=0.02, seed=5)
     A = SparseMatrix(m)
     x = np.random.default_rng(1).standard_normal(m.nr_cols)
-    gold = m.to_scipy().astype(np.float64) @ x
-    assert np.abs((A @ x) - gold).max() < 1e-10
+    gold = m.to_scipy() @ x
+    assert np.abs(np.asarray(A @ x) - gold).max() < 1e-13
 
 
-def test_cg_df64_in_while_loop():
+def test_f64_tolerance_rejects_an_f32_result():
+    """The float64 bound is relative and tight: a float32 downcast of the
+    same product fails it."""
+    m = random_csr(500, 600, density=0.05, seed=7)
+    x = np.random.default_rng(2).standard_normal(m.nr_cols)
+    gold = spmv_gold(m, x)
+    tol = default_tolerance(np.float64, m.row_nnz())
+    assert verification(gold, np.asarray(SparseMatrix(m) @ x), *tol) == 0
+    y32 = gold.astype(np.float32).astype(np.float64)
+    assert verification(gold, y32, *tol) > 0
+
+
+def test_cg_f64_in_while_loop():
     L = laplace_2d(20)
     A = SparseMatrix(L)
     b = np.ones(L.nr_rows, np.float64)
-    res = jax.jit(lambda A, b: cg_df64(A.spmv, b, maxiter=400))(
-        A, DF64.from_f64(b))
-    x = res.x.to_f64()
-    resid = np.linalg.norm(L.to_scipy().astype(np.float64) @ x - b)
-    assert resid < 1e-6 * np.linalg.norm(b)
+    res = jax.jit(lambda A, b: cg(A.spmv, b, tol=1e-12, maxiter=400))(A, b)
+    x = np.asarray(res.x)
+    assert x.dtype == np.float64
+    resid = np.linalg.norm(L.to_scipy() @ x - b)
+    assert resid < 1e-11 * np.linalg.norm(b)
     # accuracy well beyond f32: compare to a float64 host solve
     import scipy.sparse.linalg as spla
-    xg, _ = spla.cg(L.to_scipy().astype(np.float64), b, rtol=1e-12)
-    assert np.abs(x - xg).max() < 1e-8
+    xg, _ = spla.cg(L.to_scipy(), b, rtol=1e-13)
+    assert np.abs(x - xg).max() < 1e-9
 
 
-def test_spmm_df64_fused():
+def test_spmm_f64():
     m = random_csr(500, 600, density=0.01, seed=4)
     A = SparseMatrix(m)
     X = np.random.default_rng(2).standard_normal((m.nr_cols, 4))
-    gold = m.to_scipy().astype(np.float64) @ X
-    Y = A.spmm(X)
+    Y = np.asarray(A.spmm(X))
     assert Y.dtype == np.float64
-    assert np.abs(Y - gold).max() < 1e-10
+    assert np.abs(Y - m.to_scipy() @ X).max() < 1e-13
 
 
-def test_df64_device_checkpoint(tmp_path):
+def test_f64_device_checkpoint(tmp_path):
     from sparsetpu.pack.serialize import load_device, save_device
     m = random_csr(300, 400, density=0.02, seed=6)
     A = SparseMatrix(m)
-    p = str(tmp_path / "df64.npz")
-    save_device(p, A._device)
-    d2 = load_device(p, interpret=True)
+    p = str(tmp_path / "f64.npz")
+    save_device(p, A)
+    d2 = load_device(p)
     x = np.random.default_rng(3).standard_normal(m.nr_cols)
-    y = d2.spmv_f64(x)
-    gold = m.to_scipy().astype(np.float64) @ x
-    assert np.abs(y - gold).max() < 1e-10
+    y = np.asarray(d2 @ x)
+    assert y.dtype == np.float64
+    assert np.abs(y - m.to_scipy() @ x).max() < 1e-13
 
 
 def test_save_device_rejects_unknown():
     from sparsetpu.pack.serialize import save_device
     with pytest.raises(TypeError):
-        save_device("/tmp/x.npz", object())
+        save_device("unused.npz", object())
 
 
-def test_pcg_df64():
-    from sparsetpu.solvers.cg import pcg_df64, jacobi_preconditioner
+def test_pcg_f64():
     L = laplace_2d(16)
     A = SparseMatrix(L)
     b = np.ones(L.nr_rows, np.float64)
     m_inv = jacobi_preconditioner(L)
-    res = jax.jit(lambda A, b: pcg_df64(A.spmv, b, m_inv, maxiter=300))(
-        A, DF64.from_f64(b))
-    x = res.x.to_f64()
-    resid = np.linalg.norm(L.to_scipy().astype(np.float64) @ x - b)
-    assert resid < 1e-6 * np.linalg.norm(b)
+    res = jax.jit(lambda A, b: pcg(A.spmv, b, m_inv, tol=1e-12,
+                                   maxiter=300))(A, b)
+    x = np.asarray(res.x)
+    assert x.dtype == np.float64
+    resid = np.linalg.norm(L.to_scipy() @ x - b)
+    assert resid < 1e-11 * np.linalg.norm(b)

@@ -88,3 +88,24 @@ def test_laplace_and_banded():
     assert np.allclose(m.to_dense(), m.to_dense().T)
     b = banded_csr(20, 20, bandwidth=2)
     assert b.nr_nzeros > 0
+
+
+def test_default_tolerance_per_dtype():
+    from sparsetpu.formats import default_tolerance
+    a64, r64 = default_tolerance(np.float64, 16)
+    a32, r32 = default_tolerance(np.float32, 16)
+    assert a64 == r64 == pytest.approx(4e-12)
+    assert a32 == r32 == pytest.approx(4e-5)
+    # per-row bounds from an array of row lengths
+    rows = np.array([0, 1, 4, 100])
+    atol, _ = default_tolerance(np.float32, rows)
+    np.testing.assert_allclose(atol, 1e-5 * np.array([1, 1, 2, 10]))
+
+
+def test_spmv_gold_keeps_small_rows_exact():
+    """Row sums are per row: a tiny row after huge ones keeps its digits
+    (a running sum over the whole matrix would cancel them away)."""
+    m = CSRMatrix.from_coo(np.array([0, 1, 1]), np.array([0, 0, 1]),
+                           np.array([1e16, 1.0, 0.5]), 2, 2)
+    y = spmv_gold(m, np.array([1.0, 1.0]))
+    assert y[0] == 1e16 and y[1] == 1.5

@@ -1,18 +1,14 @@
-"""Pack engine: scan, balance, GStream pack/unpack round-trip."""
+"""Pack engine: the reference format's scan, and row balancing."""
 
 import numpy as np
-import pytest
 
-from sparsetpu.formats import CSRMatrix, banded_csr, laplace_2d, random_csr
-from sparsetpu.pack import (balance_rows, pack_gstream, scan_matrix,
-                            unpack_gstream)
-from sparsetpu.utils import SpmvConfig
+from sparsetpu.formats import random_csr
+from sparsetpu.pack import balance_rows, scan_matrix
 
 
 def test_scan_matrix_counts():
     m = random_csr(40, 5000, density=0.05, seed=7)
-    cfg = SpmvConfig(num_partitions=2, block_cols=2048, vf=4)
-    s = scan_matrix(m, cfg)
+    s = scan_matrix(m, vf=4, block_cols=2048)
     assert s.nr_blocks == 3
     assert s.block_row_nnz.sum() == m.nr_nzeros
     # padded counts: multiples of vf, >= raw
@@ -33,77 +29,19 @@ def test_balance_rows():
     assert p.nnz.max() <= 2.5 * ideal  # loose: contiguous split limit
 
 
-@pytest.mark.parametrize("shape,density,kwargs", [
-    ((64, 64), 0.1, {}),
-    ((200, 300), 0.05, {"empty_row_frac": 0.3}),
-    ((50, 5000), 0.02, {}),          # multi-group window (G > 1)
-    ((300, 70000), 0.002, {}),       # multi column-block (ncols > 32768)
-    ((17, 9), 0.5, {}),              # tiny
-    ((128, 128), 0.9, {}),           # dense-ish: residue pressure
-])
-def test_gstream_roundtrip(shape, density, kwargs):
-    m = random_csr(*shape, density=density, seed=9, **kwargs)
-    p = pack_gstream(m)
-    m2 = unpack_gstream(p)
-    assert np.allclose(m.to_dense(), m2.to_dense(), atol=0), \
-        f"fill={p.fill_factor:.3f} tiles={p.n_tiles}"
-
-
-def test_gstream_empty_matrix():
-    m = CSRMatrix(np.zeros(11, np.int32), np.zeros(0, np.int32),
-                  np.zeros(0, np.float64), 10, 10)
-    p = pack_gstream(m)
-    assert p.n_steps >= 1
-    m2 = unpack_gstream(p)
-    assert m2.nr_nzeros == 0
-
-
-def test_gstream_fill_factor_reasonable():
-    # avg ~20 nnz/row: row padding to 8 should keep fill above ~55%
-    m = random_csr(2000, 2000, density=0.01, seed=10)
-    p = pack_gstream(m)
-    assert p.fill_factor > 0.55, p.fill_factor
-    assert p.storage_overhead() < 4.0
-
-
-def test_gstream_banded():
-    m = banded_csr(500, 500, bandwidth=8)
-    p = pack_gstream(m)
-    m2 = unpack_gstream(p)
-    assert np.allclose(m.to_dense(), m2.to_dense())
-
-
-def test_gstream_laplace():
-    m = laplace_2d(20)
-    p = pack_gstream(m)
-    m2 = unpack_gstream(p)
-    assert np.allclose(m.to_dense(), m2.to_dense())
-
-
-def test_gstream_duplicate_heavy_column():
-    # one dense column: every row hits residue 5 -> matching stress
-    rows = np.arange(200, dtype=np.int64)
-    cols = np.full(200, 5, dtype=np.int64)
-    vals = np.random.default_rng(3).standard_normal(200)
-    m = CSRMatrix.from_coo(rows, cols, vals, 200, 64)
-    p = pack_gstream(m)
-    m2 = unpack_gstream(p)
-    assert np.allclose(m.to_dense(), m2.to_dense())
-
-
 def test_device_checkpoint_roundtrip(tmp_path):
-    """save_device/load_device resumes without repack or finish rebuild
-    (the packed matrix is the checkpoint-able artifact, SURVEY.md s5)."""
-    import numpy as np
+    """save_device/load_device resume without re-reading the matrix file:
+    the device CSR is the checkpoint-able artifact."""
     from sparsetpu.api.api import SparseMatrix
-    from sparsetpu.formats import random_csr, spmv_gold, verification
+    from sparsetpu.formats import default_tolerance, spmv_gold, verification
     from sparsetpu.pack.serialize import load_device, save_device
 
     m = random_csr(2000, 3000, density=0.01, seed=77, dtype=np.float32)
-    sm = SparseMatrix(m, backend="pallas", interpret=True)
+    sm = SparseMatrix(m)
     path = str(tmp_path / "dev.npz")
-    save_device(path, sm._device)
-    d2 = load_device(path, interpret=True)
+    save_device(path, sm)
+    d2 = load_device(path)
     x = np.random.default_rng(5).standard_normal(m.nr_cols)
-    y = np.asarray(d2.spmv(d2.prepare_x(x), x_is_packed=True))
-    assert verification(spmv_gold(m, x), y, 1e-3, 1e-3) == 0
+    y = np.asarray(d2.spmv_packed_x(d2.prepare_x(x)))
+    assert verification(spmv_gold(m, x.astype(np.float32)), y,
+                        *default_tolerance(np.float32, m.row_nnz())) == 0

@@ -65,7 +65,7 @@ def test_pcg_jacobi_converges_faster():
     import scipy.sparse as ssp
     d = ssp.diags(s)
     m = CSRMatrix.from_scipy((d @ sp @ d).tocsr().astype(np.float32))
-    A = SparseMatrix(m, interpret=True)
+    A = SparseMatrix(m)
     b = np.ones(n, np.float32)
     r1 = cg(A.spmv, b, tol=1e-5, maxiter=3000)
     r2 = pcg(A.spmv, b, jacobi_preconditioner(m), tol=1e-5, maxiter=3000)
@@ -82,7 +82,7 @@ def test_jacobi_iteration_reduces_residual():
     m = laplace_2d(16)
     import numpy as _np
     m.values = m.values.astype(_np.float32)
-    A = SparseMatrix(m, interpret=True)
+    A = SparseMatrix(m)
     b = np.ones(m.nr_rows, np.float32)
     x = np.asarray(jacobi_iteration(A.spmv, m, b, iters=200, omega=0.6))
     res = np.linalg.norm(b - np.asarray(A.spmv(x)))
@@ -108,3 +108,37 @@ def test_gmres_nonsymmetric():
     res = gmres(A.spmv, b, restart=25, tol=1e-5, maxiter=300)
     x = np.asarray(res.x)
     assert np.linalg.norm(a @ x - b) < 1e-3 * np.linalg.norm(b)
+
+
+def _nonsymmetric(n=300, seed=3):
+    import scipy.sparse as sp
+    from sparsetpu.formats.csr import CSRMatrix
+    rng = np.random.default_rng(seed)
+    s = sp.random(n, n, density=0.02, random_state=seed,
+                  data_rvs=lambda k: 0.1 * rng.standard_normal(k))
+    return CSRMatrix.from_scipy((sp.eye(n) + s).tocsr())
+
+
+@pytest.mark.parametrize("solver", ["cg", "pcg", "bicgstab", "gmres"])
+def test_native_f64_solver_matches_scipy(solver):
+    """float64 end to end (b, iterates, dots) against scipy's direct
+    solve, to a residual no float32 run reaches."""
+    import scipy.sparse.linalg as spla
+    from sparsetpu.solvers.cg import gmres, jacobi_preconditioner, pcg
+    m = laplace_2d(16) if solver in ("cg", "pcg") else _nonsymmetric()
+    A = SparseMatrix(m)
+    b = np.random.default_rng(4).standard_normal(m.nr_rows)
+    if solver == "cg":
+        res = cg(A.spmv, b, tol=1e-12, maxiter=2000)
+    elif solver == "pcg":
+        res = pcg(A.spmv, b, jacobi_preconditioner(m), tol=1e-12,
+                  maxiter=2000)
+    elif solver == "bicgstab":
+        res = bicgstab(A.spmv, b, tol=1e-12, maxiter=2000)
+    else:
+        res = gmres(A.spmv, b, restart=30, tol=1e-12, maxiter=600)
+    x = np.asarray(res.x)
+    assert x.dtype == np.float64
+    xg = spla.spsolve(m.to_scipy().tocsc(), b)
+    assert np.abs(x - xg).max() < 1e-9 * np.abs(xg).max()
+    assert np.linalg.norm(m.to_scipy() @ x - b) < 1e-10 * np.linalg.norm(b)

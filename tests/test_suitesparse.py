@@ -1,6 +1,5 @@
 """SuiteSparse ingestion: cache/pre-placed file handling, offline
-behavior, synthetic stand-ins, and the suite protocol (VERDICT r1
-item 4)."""
+behavior, synthetic stand-ins, and the suite protocol."""
 
 import os
 
